@@ -1,5 +1,5 @@
-# SegAlign-TPU container (CPU fallback works anywhere; TPU runtime comes
-# from the host's libtpu / JAX plugin).
+# SegAlign container. The image runs on the CPU as built; for an NVIDIA
+# GPU install JAX's CUDA plugin instead ("jax[cuda12]").
 FROM python:3.12-slim
 RUN apt-get update && apt-get install -y --no-install-recommends g++ make \
     curl ca-certificates \

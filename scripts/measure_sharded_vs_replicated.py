@@ -1,11 +1,11 @@
 """Sharded-table vs replicated-table cost on the virtual CPU mesh.
 
-No multi-chip TPU exists in this container, so chip scaling is
-unmeasurable; what IS measurable on 8 virtual CPU devices (which share
+Device scaling needs real GPUs (chip_smoke.py --four); what IS
+measurable on 8 virtual CPU devices (which share
 one host's cores) is the sharded pipeline's fixed costs vs the
 replicated path on identical input: compile time, per-chunk exec wall,
-escalation count (must be ZERO with density-derived capacities,
-VERDICT r4 weak #5), and output parity. Run:
+escalation count (must be ZERO with density-derived capacities),
+and output parity. Run:
 
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python scripts/measure_sharded_vs_replicated.py

@@ -47,7 +47,7 @@ def apply_multihost_args(a) -> None:
 def build_pairwise_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="run_segalign",
-        description="SegAlign-TPU: pairwise whole-genome aligner "
+        description="SegAlign (JAX): pairwise whole-genome aligner "
                     "(seed-filter-extend, LASTZ-compatible)")
     p.add_argument("target", nargs="?", help="target sequence file (FASTA)")
     p.add_argument("query", nargs="?", help="query sequence file (FASTA)")
@@ -86,7 +86,7 @@ def build_pairwise_parser() -> argparse.ArgumentParser:
                    help="shard the seed position table by k-mer range over "
                         "the device mesh (all_to_all seed routing) instead "
                         "of replicating it per device; for reference "
-                        "blocks whose table exceeds one chip's HBM")
+                        "blocks whose table exceeds one device's memory")
     p.add_argument("--gapped_mode", default="auto",
                    choices=["auto", "delegate", "native"],
                    help="gapped stage: delegate to lastz (byte-compatible "
@@ -101,7 +101,7 @@ def build_pairwise_parser() -> argparse.ArgumentParser:
     _add_multihost_args(p)
     p.add_argument("--debug", action="store_true")
     p.add_argument("--version", action="version",
-                   version=f"SegAlign-TPU Version: {VERSION}")
+                   version=f"SegAlign (JAX) Version: {VERSION}")
     return p
 
 
@@ -125,7 +125,7 @@ def pairwise_config_from_args(a) -> Config:
 def build_rm_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="run_segalign_repeat_masker",
-        description="SegAlign-TPU repeat masker: self-alignment coverage "
+        description="SegAlign (JAX) repeat masker: self-alignment coverage "
                     "intervals")
     p.add_argument("seq_file", nargs="?", help="sequence file (FASTA)")
     p.add_argument("--strand", default="both",
@@ -153,14 +153,14 @@ def build_rm_parser() -> argparse.ArgumentParser:
     p.add_argument("--sharded_table", action="store_true",
                    help="shard the seed position table by k-mer range over "
                         "the device mesh (RM blocks are 1 GB, the mode "
-                        "that outgrows one chip's HBM first)")
+                        "that outgrows one device's memory first)")
     p.add_argument("--workdir", default="",
                    help="pinned working directory (enables --resume)")
     p.add_argument("--resume", action="store_true")
     _add_multihost_args(p)
     p.add_argument("--debug", action="store_true")
     p.add_argument("--version", action="version",
-                   version=f"SegAlign-TPU Version: {VERSION}")
+                   version=f"SegAlign (JAX) Version: {VERSION}")
     return p
 
 

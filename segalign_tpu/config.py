@@ -181,9 +181,10 @@ class Config:
     num_devices: int = -1
     debug: bool = False
 
-    # TPU-specific knobs (no reference equivalent)
-    max_hits: int = 0           # 0 => derived from device memory
-    use_pallas: bool = True     # Pallas extension engine on TPU (False => XLA step)
+    # device-pipeline knobs (no reference equivalent)
+    max_hits: int = 0           # 0 => DEFAULT_MAX_HITS (pipeline/device.py):
+    #                             a fixed 16 GB-equivalent iteration batch
+    #                             that decides dedup batch boundaries
     device_hbuf: int = 0        # hit-buffer slots per device dispatch (0=auto)
     device_batch: int = 0       # extension sub-batch rows (0=auto)
     sharded_table: bool = False  # k-mer-sharded seed table over the device
@@ -232,7 +233,6 @@ class RMConfig:
     debug: bool = False
 
     max_hits: int = 0
-    use_pallas: bool = True
     sharded_table: bool = False  # k-mer-sharded table over the device mesh
     #                              (RM blocks are 1 GB vs pairwise 500 MB,
     #                              so RM needs table sharding FIRST)

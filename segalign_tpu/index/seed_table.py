@@ -1,6 +1,6 @@
 """Seed position table build (host, vectorized numpy).
 
-TPU-native equivalent of GenerateSeedPosTable
+JAX-pipeline equivalent of GenerateSeedPosTable
 (/root/reference/common/seed_pos_table.cu:49-109). The reference builds the
 table on CPU with TBB atomics (nondeterministic bucket order); we build it
 with a radix argsort (deterministic ascending-position buckets, output

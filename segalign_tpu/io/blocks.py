@@ -1,6 +1,6 @@
 """Sequence arenas, block decomposition, and interval planning.
 
-This is the TPU-native equivalent of the reference's DRAM-arena loading and
+This is the equivalent of the reference's DRAM-arena loading and
 block/interval planning (/root/reference/src/main.cpp:304-462 query,
 :479-541 target; /root/reference/repeat_masker_src/main.cpp:270-432 for the
 repeat-masker mode). Semantics preserved exactly:

@@ -1,10 +1,10 @@
 """Byte-level sequence encoding into the 8-letter alphabet.
 
-TPU-first layout: sequences are encoded ONCE on the host into uint8 code
+Sequences are encoded ONCE on the host into uint8 code
 arrays (numpy LUT at memory bandwidth); devices only ever see code arrays.
 This replaces the reference's on-GPU compress_string /
 compress_string_rev_comp kernels (/root/reference/src/seed_filter.cu:110-155)
-— on TPU there is no reason to ship raw ASCII to the device.
+— there is no reason to ship raw ASCII to the device.
 """
 
 from __future__ import annotations

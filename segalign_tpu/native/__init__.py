@@ -1,43 +1,79 @@
 """ctypes bindings for the native host runtime (libsegalign_native.so).
 
-Builds on first import if the shared library is missing or stale; all
-callers fall back to the pure-numpy implementations when the toolchain is
-unavailable.
+The library is built from native.cpp, gapped.cpp and seeder.cpp on first
+use, into build/ beside them, under a name keyed by a hash of the sources,
+the compiler flags and the host CPU (the flags include -march=native). A
+library whose key does not match the tree is never loaded. All callers
+fall back to the pure-numpy implementations when no compiler is available.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import sys
-import threading
+import tempfile
 
 import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(_DIR, "native.cpp"), os.path.join(_DIR, "gapped.cpp"),
          os.path.join(_DIR, "seeder.cpp")]
-_LIB = os.path.join(_DIR, "libsegalign_native.so")
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
+_BUILD_DIR = os.path.join(_DIR, "build")
 
 _lib = None
 
 
-def _build() -> bool:
+def _cpu_flags() -> str:
     try:
-        r = subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-             *_SRCS, "-o", _LIB],
-            capture_output=True, text=True)
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return line
+    except OSError:
+        pass
+    return ""
+
+
+def lib_path() -> str:
+    """Where the library built from the current sources lives."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(platform.machine().encode())
+    h.update(_cpu_flags().encode())
+    return os.path.join(_BUILD_DIR,
+                        f"libsegalign_native-{h.hexdigest()[:16]}.so")
+
+
+def _build(out: str) -> bool:
+    """Compile into a temporary name, then rename: concurrent processes
+    (parallel test workers) never load a half-written library."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    try:
+        r = subprocess.run(["g++", *_FLAGS, *_SRCS, "-o", tmp],
+                           capture_output=True, text=True)
         if r.returncode != 0:
             print("segalign_tpu: native build FAILED:\n"
                   + r.stderr[-2000:], file=sys.stderr)
             return False
+        os.replace(tmp, out)
         return True
     except Exception as e:
         print(f"segalign_tpu: native build unavailable ({e})",
               file=sys.stderr)
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def get_lib():
@@ -45,12 +81,10 @@ def get_lib():
     if _lib is not None:
         return _lib
     try:
-        src_mtime = max(os.path.getmtime(s) for s in _SRCS)
-        if (not os.path.exists(_LIB)
-                or os.path.getmtime(_LIB) < src_mtime):
-            if not _build():
-                return None
-        lib = ctypes.CDLL(_LIB)
+        path = lib_path()
+        if not os.path.exists(path) and not _build(path):
+            return None
+        lib = ctypes.CDLL(path)
         i64p = ctypes.POINTER(ctypes.c_int64)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         for name in ("dedup_pairwise", "dedup_rm"):

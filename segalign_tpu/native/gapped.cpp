@@ -539,7 +539,7 @@ int64_t gapped_extend(
 
 // DP band statistics of this thread's most recent gapped_extend call
 // (fast path only): {cells, rows, max_band} for the right then left
-// extensions. For band profiling (VERDICT r3 #7).
+// extensions. For band profiling (scripts/profile_gapped.py).
 void gapped_last_stats(int64_t* out6) {
     for (int k = 0; k < 6; k++) out6[k] = g_stats[k];
 }

@@ -1,6 +1,6 @@
 // Native host runtime for segalign_tpu.
 //
-// TPU-native equivalent of the reference's host/thrust support code:
+// Equivalent of the reference's host/thrust support code:
 //   - HSP dedup sort/unique chains, literal translations of the thrust
 //     comparators and unique_copy semantics in
 //     /root/reference/src/seed_filter.cu:47-108,769-782 and

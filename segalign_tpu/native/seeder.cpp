@@ -1,15 +1,14 @@
 // Host-native chunk seeding + hit expansion.
 //
-// TPU-native equivalent of the reference's CPU seeder stage
+// Equivalent of the reference's CPU seeder stage
 // (/root/reference/src/seeder.cpp:47-121 + GetKmerIndexAtPos,
 // common/ntcoding.cpp:43-61) combined with the GPU hit enumeration
 // (find_num_hits/find_hits, /root/reference/src/seed_filter.cu:157-230).
 //
-// Rationale: XLA's TPU gather/searchsorted lowerings are latency-bound
-// (measured ~60-100 ms for the per-chunk lookup volume), while the same
-// random lookups run in ~10 ms multithreaded on host with software
-// prefetch. The reference also seeds on CPU. The TPU keeps what it is good
-// at: the dense x-drop extension scan.
+// Rationale: the per-chunk seed lookups are random gathers into a
+// genome-sized table; they run multithreaded on the host with software
+// prefetch, like the reference's own CPU seeder, and the device keeps the
+// dense x-drop extension scan.
 //
 // Semantics are kept bit-identical to ops/seeding.py + ops/hits.py:
 //   - seed slot order: position-major, base kmer then transition variants
@@ -274,7 +273,7 @@ void seed_chunk_emit(const int32_t* pos_table, const int32_t* cnt,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Seed position table build (TPU-native equivalent of GenerateSeedPosTable,
+// Seed position table build (equivalent of GenerateSeedPosTable,
 // /root/reference/common/seed_pos_table.cu:49-109). Same output contract as
 // index/seed_table.py::build_seed_table (deterministic ascending-position
 // buckets): index_table[4^k] inclusive cumulative counts, pos_table bucket-

@@ -1,10 +1,10 @@
 """Batched ungapped x-drop extension (XLA path).
 
-TPU-native re-design of find_hsps (/root/reference/src/seed_filter.cu:232-652).
+JAX re-design of find_hsps (the reference's src/seed_filter.cu:232-652).
 The reference runs one CUDA warp per hit with 32-wide tiles; here a batch of B
 hits advances together through W-wide tiles under a lax.while_loop. The
 sequential-scan equivalence (segalign_tpu/oracle/scan_spec.py) makes the
-result independent of tile width, so W=128 fills TPU vector lanes while
+result independent of tile width, so wide windows (W=128 and up) work while
 reproducing the reference's tile-32 output exactly.
 
 Score arithmetic is int32 throughout, matching the CUDA kernel's `int` (and
@@ -15,7 +15,7 @@ elements so windows never need clamping: index (pad + position).
 
 The entropy adjustment is NOT applied here: the kernel returns raw totals and
 the A/C/G/T match counts; the host applies the double-precision entropy rule
-(the reference uses double `log`, which TPUs lack natively) to the few
+(the reference uses double `log`) to the few
 candidates in the [hspthresh, 3*hspthresh] band. Candidates are exactly the
 hits with total >= hspthresh, a superset of the accepted set since the
 entropy factor is always in [0, 1].
@@ -27,6 +27,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 PAD_CODE = 6  # X_NT; scores at padded lanes are masked anyway
 
@@ -188,3 +189,19 @@ def pad_sequence(codes, pad: int, right_pad: int | None = None):
     return np.concatenate([
         np.full(pad, PAD_CODE, dtype=np.uint8), np.asarray(codes),
         np.full(right_pad, PAD_CODE, dtype=np.uint8)])
+
+
+def pad_sequence_2d(codes: np.ndarray, pad: int, trows: int, W: int,
+                    extra_right: int = 0, fill: int = 6) -> np.ndarray:
+    """Pad like ops/extend.pad_sequence but return a (rows, 128) uint8
+    view whose right padding covers any group tile: trows*128 extra bytes
+    beyond the last window end (plus any extra_right the other engines
+    need). reshape(-1) of the device array is the 1-D padded sequence
+    (same memory layout), so the continuation path's row gathers read the
+    same buffer."""
+    n = len(codes)
+    total = pad + n + max(pad, extra_right) + 2 * W + trows * 128
+    total = -(-total // 1024) * 1024
+    out = np.full(total, fill, np.uint8)
+    out[pad:pad + n] = codes
+    return out.reshape(-1, 128)

@@ -1,11 +1,13 @@
-"""Host-stepped windowed x-drop extension (production path).
+"""The XLA window step, and host-stepped windowed x-drop extension.
 
-The lax.while_loop formulation (ops/extend.py) produces multi-minute XLA
-compiles on TPU; this variant keeps each device program dense and loop-free:
-one jitted `window step` processes W positions for every live hit, and the
-HOST advances windows until every hit has terminated (first window settles
-the overwhelming majority — a drop needs ~10 mismatches under default
-scoring). Semantics are identical (tile-width independence,
+_extension_window_step_jit is the plain reference window step: one jitted
+step processes W positions for every live hit. The production program
+(ops/extend_fused) runs it on the CPU; on CUDA GPUs the Triton kernel
+(ops/window_kernel) takes its place with identical results.
+
+extend_hits_windowed advances those steps from the HOST until every hit
+has terminated; the device-seeding path (SEGALIGN_DEVICE_SEEDING=1) uses
+it. Semantics are identical to ops/extend.py (tile-width independence,
 oracle/scan_spec.py); entropy bookkeeping follows the reference's
 fold-on-new-max rule per window.
 """
@@ -13,14 +15,9 @@ fold-on-new-max rule per window.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
-
-# SEGALIGN_PALLAS=1 routes the window scan through the fused Pallas kernel
-# (ops/extend_pallas.py); the gathers stay in XLA either way.
-_USE_PALLAS = os.environ.get("SEGALIGN_PALLAS", "") == "1"
 
 NEG = jnp.int32(-(2**31) + 1)
 
@@ -120,200 +117,25 @@ def _extension_window_step_jit(seq_r_pad, seq_q_pad, loc_r, loc_q, tile,
     return out
 
 
-def _shift_right(x, k, fill):
-    """x shifted k lanes toward higher indices along axis 1, fill on left."""
-    B = x.shape[0]
-    pad = jnp.full((B, k), fill, x.dtype)
-    return jnp.concatenate([pad, x[:, :-k]], axis=1)
-
-
-def _lane_cummax(x, W):
-    k = 1
-    while k < W:
-        x = jnp.maximum(x, _shift_right(x, k, NEG))
-        k *= 2
-    return x
-
-
-def _cumsum_tri(W):
-    # upper-triangular ones (incl. diagonal): (sc @ U)[b, j] = sum_{i<=j}
-    i = jnp.arange(W, dtype=jnp.int32)
-    return (i[:, None] <= i[None, :]).astype(jnp.float32)
-
-
-def _matmul_cumsum(sc, W):
-    """Inclusive lane cumsum on the MXU. Exact: |values| < 2^23 and
-    Precision.HIGHEST f32 accumulation."""
-    tri = _cumsum_tri(W)
-    out = jnp.dot(sc.astype(jnp.float32), tri,
-                  precision=jax.lax.Precision.HIGHEST)
-    return out.astype(jnp.int32)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("pad", "W", "left", "with_counts"))
-def _extension_window_step_lean(seq_r_pad, seq_q_pad, loc_r, loc_q, tile,
-                                done, cum, maxv, maxp, counts, cdel,
-                                sub_flat, xdrop, ref_len, query_len, *,
-                                pad: int, W: int, left: bool,
-                                with_counts: bool = True):
-    """Semantically identical to _extension_window_step_jit, restructured
-    for the TPU cost model: lane cumsum on the MXU, cummax as log-step
-    shifted maxes, entropy counts as 8 masked row reductions (no (B, W, 4)
-    intermediates). Cross-checked against the original step by the oracle
-    test suite."""
-    B = loc_r.shape[0]
-    lanes = jnp.arange(W, dtype=jnp.int32)[None, :]
-    alive = jnp.logical_not(done)
-
-    if left:
-        p = tile + 1 + lanes
-        r_start = pad + loc_r - tile - W
-        q_start = pad + loc_q - tile - W
-        r = jax.vmap(lambda s: jax.lax.dynamic_slice(seq_r_pad, (s,), (W,))
-                     )(r_start)[:, ::-1].astype(jnp.int32)
-        q = jax.vmap(lambda s: jax.lax.dynamic_slice(seq_q_pad, (s,), (W,))
-                     )(q_start)[:, ::-1].astype(jnp.int32)
-        inb = (loc_r[:, None] >= p) & (loc_q[:, None] >= p)
-        edge = (loc_r < tile + W) | (loc_q < tile + W)
-    else:
-        p = tile + lanes
-        r = jax.vmap(lambda s: jax.lax.dynamic_slice(seq_r_pad, (s,), (W,))
-                     )(pad + loc_r + tile).astype(jnp.int32)
-        q = jax.vmap(lambda s: jax.lax.dynamic_slice(seq_q_pad, (s,), (W,))
-                     )(pad + loc_q + tile).astype(jnp.int32)
-        inb = ((loc_r[:, None] + p) < ref_len) & \
-              ((loc_q[:, None] + p) < query_len)
-        edge = (loc_r + tile + (W - 1) >= ref_len) | \
-               (loc_q + tile + (W - 1) >= query_len)
-
-    sc = jnp.where(inb, jnp.take(sub_flat, r * 8 + q), 0)
-    cum_tile = _matmul_cumsum(sc, W) + cum[:, None]
-    run_max = _lane_cummax(cum_tile, W)
-    m = jnp.maximum(maxv[:, None], run_max)
-    dropm = (m - cum_tile) > xdrop
-    anydrop = jnp.any(dropm, axis=1)
-    d = jnp.where(anydrop, jnp.argmax(dropm, axis=1).astype(jnp.int32), W)
-    before = lanes < d[:, None]
-
-    best_in_tile = jnp.max(jnp.where(before, cum_tile, NEG), axis=1)
-    Mv = jnp.maximum(maxv, best_in_tile)
-    is_new = Mv > maxv
-    j = jnp.argmax((cum_tile == Mv[:, None]) & before, axis=1
-                   ).astype(jnp.int32)
-    if left:
-        Mp = jnp.where(is_new, tile + 1 + j, maxp)
-    else:
-        Mp = jnp.where(is_new, tile + j, maxp)
-
-    finish = anydrop | edge
-
-    if with_counts:
-        new_max_found = Mp > maxp
-        counts_f = jnp.where(new_max_found[:, None], counts + cdel, counts)
-        cdel_f = jnp.where(new_max_found[:, None], 0, cdel)
-        match = inb & (r == q) & (r < 4)
-        in_ext = p <= Mp[:, None]
-        m_in = match & in_ext
-        m_out = match & jnp.logical_not(in_ext)
-        counts_f = counts_f + jnp.stack(
-            [jnp.sum(m_in & (r == c), axis=1, dtype=jnp.int32)
-             for c in range(4)], axis=1)
-        cdel_f = cdel_f + jnp.stack(
-            [jnp.sum(m_out & (r == c), axis=1, dtype=jnp.int32)
-             for c in range(4)], axis=1)
-    else:
-        counts_f, cdel_f = counts, cdel  # lazy entropy (see _jit variant)
-
-    al2 = alive[:, None]
-    out = dict(
-        done=done | (alive & finish),
-        cum=jnp.where(alive, cum_tile[:, -1], cum),
-        maxv=jnp.where(alive, Mv, maxv),
-        maxp=jnp.where(alive, Mp, maxp),
-        counts=jnp.where(al2, counts_f, counts),
-        cdel=jnp.where(al2, cdel_f, cdel))
-    out["n_alive"] = jnp.sum(jnp.logical_not(out["done"]).astype(jnp.int32))
-    return out
-
-
-# SEGALIGN_LEAN=0 selects the original step formulation (kept as the
-# semantic reference; the lean step is the production path)
-_USE_LEAN = os.environ.get("SEGALIGN_LEAN", "1") == "1"
-
-
-def window_step_fn():
-    """The active window-step implementation (jitted)."""
-    return (_extension_window_step_lean if _USE_LEAN
-            else _extension_window_step_jit)
-
-
 def extension_window_step(*args, **kw):
-    """Python trampoline + retry wrapper: transient INVALID_ARGUMENT /
-    buffer-count dispatch bugs in this environment (see
-    scan_utils.robust_call)."""
-    if _USE_PALLAS:
-        return _extension_window_step_pallas(*args, **kw)
-    return _robust_call(window_step_fn(), *args, **kw)
-
-
-@functools.partial(jax.jit, static_argnames=("pad", "W", "left"))
-def _gather_window_jit(seq_r_pad, seq_q_pad, loc_r, loc_q, tile, ref_len,
-                      query_len, *, pad: int, W: int, left: bool):
-    """XLA half of the Pallas path: window gathers + bounds mask."""
-    B = loc_r.shape[0]
-    lanes = jnp.arange(W, dtype=jnp.int32)[None, :]
-    if left:
-        p = tile + 1 + lanes
-        r = jax.vmap(lambda st: jax.lax.dynamic_slice(seq_r_pad, (st,), (W,))
-                     )(pad + loc_r - tile - W).astype(jnp.int32)[:, ::-1]
-        q = jax.vmap(lambda st: jax.lax.dynamic_slice(seq_q_pad, (st,), (W,))
-                     )(pad + loc_q - tile - W).astype(jnp.int32)[:, ::-1]
-        inb = (loc_r[:, None] >= p) & (loc_q[:, None] >= p)
-    else:
-        p = tile + lanes
-        r = jax.vmap(lambda st: jax.lax.dynamic_slice(seq_r_pad, (st,), (W,))
-                     )(pad + loc_r + tile).astype(jnp.int32)
-        q = jax.vmap(lambda st: jax.lax.dynamic_slice(seq_q_pad, (st,), (W,))
-                     )(pad + loc_q + tile).astype(jnp.int32)
-        inb = ((loc_r[:, None] + p) < ref_len) & \
-              ((loc_q[:, None] + p) < query_len)
-    return r, q, inb.astype(jnp.int32)
-
-
-def _extension_window_step_pallas(seq_r_pad, seq_q_pad, loc_r, loc_q, tile,
-                                  done, cum, maxv, maxp, counts, cdel,
-                                  sub_flat, xdrop, ref_len, query_len, *,
-                                  pad: int, W: int, left: bool):
-    from .extend_pallas import window_scan_pallas
-    interpret = next(iter(seq_r_pad.devices())).platform != "tpu"
-    r, q, inb = _robust_call(
-        _gather_window_jit, seq_r_pad, seq_q_pad, loc_r, loc_q, tile,
-        ref_len, query_len, pad=pad, W=W, left=left)
-    del inb  # the scan kernel derives in-bounds masks from loc_r/loc_q
-    B = loc_r.shape[0]
-    BR = min(256, B)
-    o_done, o_cum, o_maxv, o_maxp, o_counts, o_cdel = _robust_call(
-        window_scan_pallas, r, q, loc_r, loc_q, cum, maxv, maxp, done,
-        counts, cdel, sub_flat, xdrop, tile, ref_len, query_len, W=W,
-        left=left, BR=BR, interpret=interpret)
-    out = dict(done=o_done, cum=o_cum, maxv=o_maxv, maxp=o_maxp,
-               counts=o_counts, cdel=o_cdel)
-    out["n_alive"] = jnp.sum(jnp.logical_not(o_done).astype(jnp.int32))
-    return out
+    """Dispatch one window step (see scan_utils.robust_call)."""
+    return _robust_call(_extension_window_step_jit, *args, **kw)
 
 
 @functools.partial(jax.jit, static_argnames=())
 def _finalize(valid, loc_r, loc_q, r_maxv, r_maxp, l_maxv, l_maxp, counts,
               hspthresh):
+    """Extents and totals of a hit batch; counts=None leaves out the
+    entropy counts (the host recomputes them from the extents)."""
     total = r_maxv + l_maxv
     out = dict(
         candidate=valid & (total >= hspthresh),
         rs=jnp.where(valid, loc_r - l_maxp, 0),
         qs=jnp.where(valid, loc_q - l_maxp, 0),
         length=jnp.where(valid, r_maxp + l_maxp, -1),
-        total=jnp.where(valid, total, 0),
-        counts=jnp.where(valid[:, None], counts, 0))
+        total=jnp.where(valid, total, 0))
+    if counts is not None:
+        out["counts"] = jnp.where(valid[:, None], counts, 0)
     return out
 
 

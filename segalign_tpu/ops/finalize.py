@@ -2,9 +2,9 @@
 
 The device kernel returns raw totals and A/C/G/T match counts for every hit
 with total >= hspthresh. The entropy rule
-(/root/reference/src/seed_filter.cu:608-648) uses double-precision log, which
-TPUs lack natively, so the (few) in-band candidates are finalized here in
-float64 — bit-exact with the CUDA kernel.
+(the reference's src/seed_filter.cu:608-648) uses double-precision log, so
+the (few) in-band candidates are finalized here in float64 on the host —
+bit-exact with the CUDA kernel.
 """
 
 from __future__ import annotations

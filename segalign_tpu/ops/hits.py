@@ -1,6 +1,6 @@
 """Hit expansion: seed-hit index ranges -> (ref_loc, query_loc) pairs.
 
-TPU-native equivalent of find_num_hits/find_hits
+JAX equivalent of find_num_hits/find_hits
 (/root/reference/src/seed_filter.cu:157-230). Hits are addressed by a flat
 global hit index g; a vectorized binary search over the seed cumsum recovers
 the owning seed, then the bucket offset indexes pos_table.
@@ -40,10 +40,10 @@ def expand_hits(cum, starts, qpos, pos_table, g0, g1, seed_size,
 @jax.jit
 def compact_mask(mask, *arrays):
     """Stream compaction: pack rows where mask is True to the front of
-    same-shaped buffers (TPU equivalent of compress_output,
+    same-shaped buffers (equivalent of compress_output,
     seed_filter.cu:654-680). Returns (n, packed_arrays...).
 
-    Implemented as a stable argsort + gathers (TPU scatter is slow)."""
+    Implemented as a stable argsort + gathers."""
     n = jnp.sum(mask.astype(jnp.int32))
     perm = jnp.argsort(jnp.logical_not(mask), stable=True)
     outs = [jnp.take(a, perm, axis=0) for a in arrays]

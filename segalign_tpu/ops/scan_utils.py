@@ -1,9 +1,9 @@
-"""TPU-friendly scans.
+"""Blocked scans and the dispatch wrapper.
 
-XLA's TPU lowering of 1-D cumulative ops degenerates on large arrays
-(compile time explodes somewhere past ~10^5 elements). All long scans in the
-pipeline use this blocked 2-D formulation instead: lane-axis cumsums within
-rows plus a short second-level scan of row totals.
+Long 1-D scans in the pipeline use a blocked 2-D formulation: lane-axis
+cumsums within rows plus a short second-level scan of row totals. (It was
+introduced for a backend whose 1-D cumulative lowering degenerated on
+large arrays; not re-measured on GPUs.)
 """
 
 from __future__ import annotations
@@ -13,11 +13,10 @@ import jax.numpy as jnp
 
 import os
 
-# SEGALIGN_SYNC=1 restores round-1 behavior: synchronize after every wrapped
-# dispatch and retry once (with a cleared trace cache) on the transient
-# INVALID_ARGUMENT / buffer-count dispatch bugs this environment used to
-# show. Off by default: the happy-path sync defeated JAX async dispatch and
-# the underlying environment bugs no longer reproduce (round 2 probes).
+# SEGALIGN_SYNC=1 (debugging): synchronize after every wrapped dispatch and
+# retry once, with a cleared trace cache, on an INVALID_ARGUMENT /
+# buffer-count dispatch error. Off by default: the sync defeats JAX's
+# async dispatch.
 _SYNC_RETRY = os.environ.get("SEGALIGN_SYNC", "") == "1"
 
 

@@ -1,6 +1,6 @@
 """Device-side query seeding: spaced-seed k-mers + transition expansion.
 
-TPU-native equivalent of the seeder stage (/root/reference/src/seeder.cpp:47-121
+JAX equivalent of the seeder stage (the reference's src/seeder.cpp:47-121
 + GetKmerIndexAtPos, common/ntcoding.cpp:43-61). The query block lives on
 device; one jitted call produces every seed of a wga chunk, so nothing but
 scalars crosses the host boundary per chunk.

@@ -1,7 +1,7 @@
 """Multi-host distribution.
 
 The reference is single-host (SURVEY section 2: no NCCL/MPI; multi-GPU =
-replicate inputs + dynamic checkout). The TPU-native scale-out keeps that
+replicate inputs + dynamic checkout). This scale-out keeps that
 data flow and adds a host dimension:
 
   v1 (implemented here): every host holds the full reference block + seed
@@ -22,12 +22,12 @@ data flow and adds a host dimension:
 
 Launch: run the same CLI on every host with
   SEGALIGN_NUM_HOSTS=N SEGALIGN_HOST_ID=i [SEGALIGN_COORD=ip:port]
-(or let jax.distributed discover a TPU pod's topology natively).
+(jax.distributed needs the coordinator, process count and id).
 
 v1 + v2 compose: after maybe_initialize_distributed(), a
 ShardedAligner(devices=jax.devices()) builds its mesh over the GLOBAL
 device list, so the k-mer shards span processes and the all_to_all rides
-whatever links connect them (ICI within a pod slice, DCN across).
+whatever links connect them (NVLink within a host, the network across).
 Because every collective input is either fully replicated (sequence
 blocks, scalars) or shard-sharded by the mesh, the same script runs
 unmodified at any process count; tests/test_distributed_sharded.py

@@ -12,8 +12,8 @@ the table is sharded by k-mer range across a device mesh:
 Per chunk, under one `shard_map` program:
   1. seeding      — each shard extracts spaced-seed k-mers for its 1/S
                     position slice of the chunk (replicated query block)
-  2. routing      — seeds go to their owner shard with ONE all_to_all over
-                    ICI (a seed record is 8 bytes: kmer + query position)
+  2. routing      — seeds go to their owner shard with ONE all_to_all
+                    (a seed record is 8 bytes: kmer + query position)
   3. expansion    — the owner looks up its local index slice and expands
                     hits from its local pos_table slice (absolute ref
                     positions, so nothing needs re-basing)
@@ -28,7 +28,7 @@ returned to the host) rather than silently truncated; callers re-run the
 chunk with larger capacities or the replicated path.
 
 This is the scale-out mode for reference blocks whose table exceeds one
-chip's HBM; the single-host production path keeps host-native seeding
+device's memory; the single-host production path keeps host-native seeding
 (pipeline/device.py). Exact-parity test: tests/test_sharded_table.py;
 multi-chip compile/exec check: __graft_entry__.dryrun_multichip.
 """
@@ -106,8 +106,7 @@ def _extract_seeds_local(query_pad, chunk_start, chunk_len, *, CHUNK_LOC,
 def make_sharded_extender(mesh, *, n_shards, kmer_size, seed_size,
                           shape_pos, transition, chunk_cap, pad, W,
                           xdrop, hspthresh, CAP, HCAP, CCAP,
-                          NB_CAP=8, engine="xla", axis="shard",
-                          rm_window=False, with_counts=True):
+                          NB_CAP=8, axis="shard", rm_window=False):
     """Build the jitted per-chunk sharded program.
 
     rm_window=True adds the repeat-masker in-window restriction: hits
@@ -120,10 +119,11 @@ def make_sharded_extender(mesh, *, n_shards, kmer_size, seed_size,
                chunk_start, chunk_len, ref_len, query_len, max_hits,
                win_lo, win_hi)
         -> (num_hits_total, num_seeds_total, cand_counts (S,),
-            packed (S*CCAP, 10), overflow int32)
+            packed (S*CCAP, 6), overflow int32)
     packed rows: (row index within shard, rs, qs, length, total,
-    counts[4], batch_id); only the first cand_counts[s] rows of each shard
-    slice are meaningful.
+    batch_id); only the first cand_counts[s] rows of each shard slice are
+    meaningful. Entropy match counts are not kept on the device;
+    finalize_sharded recomputes them from the extents.
 
     batch_id reproduces the reference's iteration-batch boundaries
     (SeedAndFilter's lower_bound chain over the seed-slot hit cumsum,
@@ -133,7 +133,6 @@ def make_sharded_extender(mesh, *, n_shards, kmer_size, seed_size,
     (one extra all_to_all returns each seed's count to its origin shard);
     NB_CAP caps the boundary count (overflow flag raised beyond it).
     """
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
     from ..ops.extend_fused import _extend_core
     from ..ops.scan_utils import blocked_cumsum
@@ -259,8 +258,7 @@ def make_sharded_extender(mesh, *, n_shards, kmer_size, seed_size,
         # 4. shard-local extension (unchanged window engine)
         fin = _extend_core(ref_pad, query_pad, ref_loc, query_loc, hvalid,
                            sub_flat, xdrop, hspthresh, ref_len, query_len,
-                           pad=pad, W=W, CONT=4096, engine=engine,
-                           with_counts=with_counts)
+                           pad=pad, W=W, CONT=4096)
         cand = fin["candidate"]
         # in-batch exact-extent dedup before compaction (the sharded
         # analog of pipeline/device._pack_compact dedup_exact, same
@@ -289,8 +287,7 @@ def make_sharded_extender(mesh, *, n_shards, kmer_size, seed_size,
         packed = jnp.concatenate([
             sel[:, None], take(fin["rs"])[:, None],
             take(fin["qs"])[:, None], take(fin["length"])[:, None],
-            take(fin["total"])[:, None], take(fin["counts"]),
-            take(hit_batch)[:, None]], axis=1)
+            take(fin["total"])[:, None], take(hit_batch)[:, None]], axis=1)
 
         # 5. gather candidates + stats
         total_hits = jax.lax.psum(num_hits, axis)
@@ -303,12 +300,12 @@ def make_sharded_extender(mesh, *, n_shards, kmer_size, seed_size,
 
     rep = P()
     shd = P(axis)
-    fn = shard_map(
+    fn = jax.shard_map(
         body, mesh=mesh,
         in_specs=(rep, rep, shd, shd, rep, rep, rep, rep, rep, rep, rep,
                   rep),
         out_specs=(rep, rep, rep, rep, rep),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(fn)
 
 
@@ -318,11 +315,12 @@ class ShardedAligner:
 
     Holds the k-mer-sharded table + replicated sequence blocks on an
     S-device mesh and runs every chunk through make_sharded_extender.
-    Capacity overflow (seed routing, hit, candidate, or batch-boundary
-    buffers) is detected by the program and handled here by rebuilding the
-    extender with 4x capacities and re-running the chunk — the escalation
-    analog of the reference's fixed MAX_HITS batching
-    (/root/reference/src/seed_filter.cu:718-745).
+    Capacity overflow (hit, candidate, or batch-boundary buffers) is
+    detected by the program and handled here by rebuilding the extender
+    with 4x hit and candidate capacities and re-running the chunk — the
+    escalation analog of the reference's fixed MAX_HITS batching
+    (the reference's src/seed_filter.cu:718-745). The seed-routing CAP
+    already holds a shard's whole slice of the chunk and never grows.
 
     Pairwise only (no RM window support): the RM path replicates its
     (single-genome) table, which by construction fits one device.
@@ -330,8 +328,8 @@ class ShardedAligner:
 
     def __init__(self, *, num_devices: int = -1, devices=None, shape_pos,
                  seed_size, transition, step, sub_mat, xdrop, hspthresh,
-                 noentropy, chunk_size, max_hits: int = 0, W: int = 0,
-                 use_pallas=None, rm_mode: bool = False, **_ignored):
+                 noentropy, chunk_size, max_hits: int = 0,
+                 window: int = 512, rm_mode: bool = False, **_ignored):
         import os
         from jax.sharding import Mesh
         if devices is None:
@@ -356,26 +354,22 @@ class ShardedAligner:
         self.chunk_cap = -(-chunk_size // S) * S
         self.max_hits = max_hits or (4194304 * 16)
         self.rm_mode = rm_mode
-        on_tpu = self.devices[0].platform == "tpu"
-        if use_pallas is None:
-            use_pallas = on_tpu
-        self.engine = ("pallas" if use_pallas and on_tpu else
-                       "pallas_interpret" if use_pallas else "xla")
-        self.W = W or (256 if self.engine.startswith("pallas") else 128)
+        # the replicated pipeline's first-window width (DeviceAligner
+        # window); continuation windows use the same width here
+        self.W = window
         self.pad = max(self.W, 512)
         self.sub_flat = np.ascontiguousarray(
             np.asarray(sub_mat).reshape(-1), np.int32)
         nvar = 1 + self.kmer_size if transition else 1
-        # per-shard seed-routing capacity: nloc is already per-shard
-        # (chunk_cap // S), so the CAP basis is 2 * nloc — dividing by S
-        # again undersized it S-fold and tripped the overflow/escalation
-        # (+ extender recompile) path on every large chunk
+        # per-shard seed-routing capacity: a shard sends at most its nloc
+        # seed slots to any one owner, so CAP = pow2(2 * nloc) never
+        # overflows and is never escalated
         nloc = self.chunk_cap // S * nvar
         self._nvar = nvar
         # (CAP, HCAP, CCAP); HCAP/CCAP are re-derived from the measured
         # table density in set_ref (see _derive_caps) — the static
         # defaults under-sized realistic chunks ~100x and tripped the
-        # 4x-escalation + extender-rebuild ladder (VERDICT r4 weak #5)
+        # 4x-escalation + extender-rebuild ladder
         self._caps = (max(4096, 1 << (2 * nloc - 1).bit_length()),
                       1 << 13, 1 << 12)
         self._ext_cache = {}
@@ -402,12 +396,9 @@ class ShardedAligner:
         from jax.sharding import NamedSharding, PartitionSpec as P
         return jax.device_put(arr, NamedSharding(self.mesh, P("shard")))
 
-    def _pad_seq(self, codes: np.ndarray) -> np.ndarray:
+    def _pad_seq(self, codes: np.ndarray, right: int = 0) -> np.ndarray:
         from ..ops.extend import pad_sequence
-        if self.engine.startswith("pallas"):
-            from ..ops.extend_pallas import awin_for
-            return pad_sequence(codes, self.pad, self.pad + awin_for(self.W))
-        return pad_sequence(codes, self.pad)
+        return pad_sequence(codes, self.pad, max(self.pad, right))
 
     def _derive_caps(self, index_table: np.ndarray) -> None:
         """Size HCAP/CCAP from the measured table density so a
@@ -453,8 +444,13 @@ class ShardedAligner:
 
     def set_query(self, fw_codes: np.ndarray, rc_codes: np.ndarray):
         self.q_len = len(fw_codes)
-        self.q_fw = self._replicate(self._pad_seq(fw_codes))
-        self.q_rc = self._replicate(self._pad_seq(rc_codes))
+        # seeding slices chunk_cap // S positions (plus the seed span) from
+        # each shard's start, and XLA's dynamic_slice clamps an
+        # out-of-range start silently: pad the right side past the last
+        # chunk's reach
+        right = self.chunk_cap + self.seed_size + 1
+        self.q_fw = self._replicate(self._pad_seq(fw_codes, right))
+        self.q_rc = self._replicate(self._pad_seq(rc_codes, right))
         self._q_fw_host = np.ascontiguousarray(fw_codes, np.uint8)
         self._q_rc_host = np.ascontiguousarray(rc_codes, np.uint8)
 
@@ -468,8 +464,7 @@ class ShardedAligner:
                 transition=self.transition, chunk_cap=self.chunk_cap,
                 pad=self.pad, W=self.W, xdrop=self.xdrop,
                 hspthresh=self.hspthresh, CAP=CAP, HCAP=HCAP, CCAP=CCAP,
-                engine=self.engine, rm_window=self.rm_mode,
-                with_counts=False)
+                rm_window=self.rm_mode)
         return self._ext_cache[key]
 
     def _dispatch(self, chunk_start: int, chunk_end: int, rev: bool,
@@ -478,34 +473,42 @@ class ShardedAligner:
         without blocking; _finish collects (and escalates on overflow)."""
         q_pad = self.q_rc if rev else self.q_fw
         win_lo, win_hi = window if window is not None else (0, 1 << 30)
-        ext = self._extender(self._caps)
+        caps = self._caps
+        ext = self._extender(caps)
         out = ext(
             self.ref_pad, q_pad, self.index_shards, self.pos_shards,
             self.sub_flat, np.int32(chunk_start),
             np.int32(chunk_end - chunk_start), np.int32(self.ref_len),
             np.int32(self.q_len), np.int32(self.max_hits),
             np.int32(win_lo), np.int32(win_hi))
-        return (out, chunk_start, chunk_end, rev, win_lo, win_hi)
+        return (out, caps, chunk_start, chunk_end, rev, win_lo, win_hi)
 
     def _finish(self, pend):
         import sys
         from ..pipeline.device import ChunkResult
-        out, chunk_start, chunk_end, rev, win_lo, win_hi = pend
+        out, caps, chunk_start, chunk_end, rev, win_lo, win_hi = pend
         q_pad = self.q_rc if rev else self.q_fw
-        caps = self._caps
         for attempt in range(6):
             th, ns, counts, packed, ovf = jax.device_get(out)
             if int(ovf) == 0:
                 hsps = finalize_sharded(
                     counts, packed, self.hspthresh, self.noentropy,
-                    rm_mode=self.rm_mode, rev=rev, ref_len=self.ref_len,
-                    seqs=(self._ref_host,
-                          self._q_rc_host if rev else self._q_fw_host))
+                    (self._ref_host,
+                     self._q_rc_host if rev else self._q_fw_host),
+                    rm_mode=self.rm_mode, rev=rev, ref_len=self.ref_len)
                 return ChunkResult(hsps, int(th), int(ns))
-            caps = tuple(c * 4 for c in caps)
-            print(f"segalign_tpu: sharded capacity escalation to {caps} "
-                  f"for chunk {chunk_start}:{chunk_end}", file=sys.stderr)
-            self._caps = caps  # later chunks start at the working size
+            if caps != self._caps:
+                # chunks dispatched ahead ran with the capacities of their
+                # dispatch; when a finished chunk has raised them since,
+                # retry there before growing (growing from the raised
+                # values compounded 4x per chunk in flight)
+                caps = self._caps
+            else:
+                caps = (caps[0], caps[1] * 4, caps[2] * 4)
+                print(f"segalign_tpu: sharded capacity escalation to "
+                      f"{caps} for chunk {chunk_start}:{chunk_end}",
+                      file=sys.stderr)
+                self._caps = caps  # later chunks start at the working size
             ext = self._extender(caps)
             out = ext(
                 self.ref_pad, q_pad, self.index_shards, self.pos_shards,
@@ -539,13 +542,15 @@ class ShardedAligner:
         return results
 
 
-def finalize_sharded(cand_counts, packed, hspthresh, noentropy,
+def finalize_sharded(cand_counts, packed, hspthresh, noentropy, seqs,
                      rm_mode: bool = False, rev: bool = False,
-                     ref_len: int = 0, seqs=None):
+                     ref_len: int = 0):
     """Host finalize of a gathered candidate set: entropy + accept, then
-    dedup PER iteration batch (packed column 9 carries the reference
-    batch id). rm_mode selects the repeat-masker dedup chain and the
-    minus-strand query remap (repeat_masker_src/seed_filter.cu:705-709).
+    dedup PER iteration batch (packed column 5 carries the reference
+    batch id). seqs = (ref codes, query codes of this strand): the
+    entropy match counts are recomputed from them and the extents.
+    rm_mode selects the repeat-masker dedup chain and the minus-strand
+    query remap (repeat_masker_src/seed_filter.cu:705-709).
     Returns (n, 4) int64 HSPs in batch order.
 
     Within a batch, candidate input order is irrelevant: dedup keys on
@@ -565,16 +570,15 @@ def finalize_sharded(cand_counts, packed, hspthresh, noentropy,
         return np.zeros((0, 4), np.int64)
     allrows = np.concatenate(rows).astype(np.int64)
     out = []
-    for b in np.unique(allrows[:, 9]):
-        r = allrows[allrows[:, 9] == b]
-        cnt = r[:, 5:9]
-        if seqs is not None and not noentropy:
-            # lazy entropy: device counts columns are zeros; recompute
-            # from extents for the entropy band (oracle/scan_spec.py)
+    for b in np.unique(allrows[:, 5]):
+        r = allrows[allrows[:, 5] == b]
+        cnt = np.zeros((len(r), 4), np.int64)
+        if not noentropy:
+            # entropy-band rows only (oracle/scan_spec.py: counts are a
+            # pure function of the extents)
             from ..native import entropy_counts_host
             ref_codes, q_codes = seqs
             band = ((r[:, 4] >= hspthresh) & (r[:, 4] <= 3 * hspthresh))
-            cnt = np.zeros((len(r), 4), np.int64)
             if band.any():
                 cnt[band] = entropy_counts_host(
                     ref_codes, q_codes, r[band, 1], r[band, 2], r[band, 3])

@@ -1,6 +1,6 @@
 """Pairwise whole-genome alignment pipeline (host orchestration).
 
-TPU-native equivalent of the reference's TBB flow graph + reader state
+Equivalent of the reference's TBB flow graph + reader state
 machine (/root/reference/src/main.cpp:553-741). The reference pipelines
 reader -> seeder -> printer across CPU threads and a GPU pool; here JAX's
 async dispatch overlaps device compute with host IO, and chunks stream
@@ -93,8 +93,6 @@ def run_pairwise(cfg: Config, out_dir: str,
         out_dir=out_dir)
 
     extra = {}
-    if not cfg.use_pallas:
-        extra["use_pallas"] = False  # default (True) = auto: Pallas on TPU
     if cfg.max_hits:
         extra["max_hits"] = cfg.max_hits
     if cfg.device_hbuf:

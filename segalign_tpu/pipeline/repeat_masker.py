@@ -1,6 +1,6 @@
 """Repeat-masker pipeline: self-alignment coverage intervals.
 
-TPU-native equivalent of /root/reference/repeat_masker_src/: block planning
+Equivalent of the reference's repeat_masker_src/: block planning
 with neighbor-interval overlap windows (main.cpp:323-432), per-chunk
 seed-filter-extend with in-window restriction, coverage accumulation
 (seeder.cpp:153-188), and interval emission (segment_printer.cpp).
@@ -218,8 +218,6 @@ def run_repeat_masker(cfg: RMConfig, out_dir: str,
         extra = {}
         if cfg.max_hits:
             extra["max_hits"] = cfg.max_hits
-        if not cfg.use_pallas:
-            extra["use_pallas"] = False  # default (True) = auto: Pallas on TPU
         aligner_cls = MultiDeviceAligner
         if getattr(cfg, "sharded_table", False):
             from ..parallel.sharded import ShardedAligner

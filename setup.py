@@ -3,7 +3,7 @@ from setuptools import setup, find_packages
 setup(
     name="segalign_tpu",
     version="0.1.0",
-    description="TPU-native whole-genome aligner (SegAlign capabilities)",
+    description="Whole-genome aligner in JAX (SegAlign capabilities)",
     packages=find_packages(exclude=["tests"]),
     package_data={"segalign_tpu.native": ["*.cpp"]},
     python_requires=">=3.10",

@@ -1,5 +1,5 @@
 """Property test: the literal tile-32 oracle is equivalent to the sequential
-scan specification. This equivalence is what the TPU kernels rely on."""
+scan specification. This equivalence is what the device programs rely on."""
 
 import numpy as np
 import pytest

@@ -1,7 +1,7 @@
 """Pipelined dispatch/finish engine: TBUF-escalation fallback + equivalence.
 
 The native path extends hits in HBUF-sized programs, then compacts ALL
-programs' candidates into one (CBUF, 9) device block per chunk-strand
+programs' candidates into one (CBUF, 5) device block per chunk-strand
 (pipeline/device._pack_compact). When the chunk has more candidates than
 CBUF, finish_chunk re-runs only the compaction at an escalated width (the
 per-program extension results are retained on device). Both paths and the

@@ -92,8 +92,8 @@ def test_sharded_matches_replicated(mesh):
             assert int(ovf) == 0
             assert int(th) == want.num_hits, (cs, ce, rev)
             assert int(ns) == want.num_seeds, (cs, ce, rev)
-            got = finalize_sharded(counts, packed, hspthresh,
-                                   noentropy=False)
+            got = finalize_sharded(counts, packed, hspthresh, False,
+                                   (ref, qarr))
             np.testing.assert_array_equal(
                 got, want.hsps, err_msg=f"{cs}:{ce} rev={rev}")
             total_hsps += len(got)
@@ -121,3 +121,76 @@ def test_sharded_overflow_detected(mesh):
         np.int32(0), np.int32(512), np.int32(n), np.int32(n),
         np.int32(10**9), np.int32(0), np.int32(1 << 30)))
     assert int(ovf) > 0
+
+
+def test_sharded_aligner_last_partial_chunk_matches_replicated():
+    """A chunk wider than the rest of the query: the shards past the
+    query's end still slice CHUNK_LOC positions from their start, which
+    must stay inside the padded query (a clamped slice read the wrong
+    positions for the shard that holds the query's tail)."""
+    from segalign_tpu.io.encode import revcomp_codes
+    from segalign_tpu.parallel.multi import ChunkWork, MultiDeviceAligner
+    from segalign_tpu.parallel.sharded import ShardedAligner
+    rng = np.random.default_rng(21)
+    sc = make_seed_config("12of19")
+    ref = rng.integers(0, 4, 30_000).astype(np.uint8)
+    query = rng.integers(0, 4, 10_000).astype(np.uint8)
+    core = ref[5_000:6_500]
+    query[8_200:9_700] = np.where(rng.random(1_500) < 0.05, (core + 1) % 4,
+                                  core)
+    kw = dict(shape_pos=sc.shape_pos, seed_size=sc.size,
+              transition=sc.transition, step=1,
+              sub_mat=build_substitution_matrix(910), xdrop=910,
+              hspthresh=3000, noentropy=False, chunk_size=16_000)
+    work = [ChunkWork(0, len(query) - sc.size, rev) for rev in (False, True)]
+    outs = []
+    for al in (MultiDeviceAligner(num_devices=1, **kw),
+               ShardedAligner(num_devices=4, **kw)):
+        al.set_ref(ref)
+        al.set_query(query, revcomp_codes(query))
+        outs.append(al.map_chunks(work))
+    for want, got in zip(*outs):
+        assert got.num_hits == want.num_hits
+        np.testing.assert_array_equal(got.hsps, want.hsps)
+    assert len(outs[0][0].hsps) > 0
+
+
+def test_sharded_escalation_does_not_compound_across_chunks_in_flight():
+    """Chunks dispatched ahead run with the capacities of their dispatch.
+    One that overflows after another chunk has raised the capacities
+    retries at the raised ones, so capacities grow once per need, not 4x
+    per chunk in flight (which overflowed int32 on a dense pair), and the
+    seed-routing CAP never grows."""
+    from segalign_tpu.io.encode import revcomp_codes
+    from segalign_tpu.parallel.multi import ChunkWork, MultiDeviceAligner
+    from segalign_tpu.parallel.sharded import ShardedAligner
+    rng = np.random.default_rng(23)
+    sc = make_seed_config("12of19")
+    ref = rng.integers(0, 4, 30_000).astype(np.uint8)
+    query = rng.integers(0, 4, 8_000).astype(np.uint8)
+    for q0, r0 in ((500, 2_000), (4_500, 20_000)):
+        core = ref[r0:r0 + 2_000]
+        query[q0:q0 + 2_000] = np.where(rng.random(2_000) < 0.05,
+                                        (core + 1) % 4, core)
+    kw = dict(shape_pos=sc.shape_pos, seed_size=sc.size,
+              transition=sc.transition, step=1,
+              sub_mat=build_substitution_matrix(910), xdrop=910,
+              hspthresh=3000, noentropy=False, chunk_size=1_000)
+    work = [ChunkWork(cs, ce, rev) for rev in (False, True)
+            for cs, ce in chunk_interval(0, len(query) - sc.size, 1_000)]
+    outs = []
+    for al in (MultiDeviceAligner(num_devices=1, **kw),
+               ShardedAligner(num_devices=4, **kw)):
+        al.set_ref(ref)
+        al.set_query(query, revcomp_codes(query))
+        if isinstance(al, ShardedAligner):
+            cap0 = al._caps[0]
+            al._caps = (cap0, 16, 16)       # every chunk overflows first
+        outs.append(al.map_chunks(work, depth=4))
+    need = max(r.num_hits for r in outs[0])
+    assert al._caps[0] == cap0
+    assert al._caps[1] <= 4 * (1 << (need - 1).bit_length())
+    for want, got in zip(*outs):
+        assert got.num_hits == want.num_hits
+        np.testing.assert_array_equal(got.hsps, want.hsps)
+    assert sum(len(r.hsps) for r in outs[0]) > 0
